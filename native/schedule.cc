@@ -6,8 +6,8 @@
 //   - the recursive evaluation counters (exact 64-bit arithmetic; the Python
 //     recursion overflows Python-call depth/time for deep (n, M) schedules).
 //
-// Exposed as a C ABI consumed through ctypes by scasml_gp_tpu.utils.native;
-// semantics mirror scasml_gp_tpu/picard/schedule.py (which remains the
+// Exposed as a C ABI consumed through ctypes by scasml_gp.utils.native;
+// semantics mirror scasml_gp/picard/schedule.py (which remains the
 // reference implementation and fallback).  Capability parity target:
 // reference solvers/MLP.py:57-139 (inverse_gamma, lgwt, approx_parameters).
 
@@ -108,7 +108,7 @@ int64_t picard_tables(int rhomax, double T, int64_t* Mf, int64_t* Mg,
 }
 
 // Evaluation counter, quadrature variant (semantics of
-// scasml_gp_tpu/picard/schedule.py::count_evaluations_quadrature).
+// scasml_gp/picard/schedule.py::count_evaluations_quadrature).
 int64_t count_quadrature(int n, int rho, const int64_t* Mf, const int64_t* Mg,
                          const int64_t* Q, int rhomax, int count_fg) {
   std::vector<int64_t> memo(n + 1, -1);

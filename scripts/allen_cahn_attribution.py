@@ -51,11 +51,11 @@ def main():
     import jax.numpy as jnp
     import numpy as np
 
-    from scasml_gp_tpu.config import GPConfig
-    from scasml_gp_tpu.equations import AllenCahn
-    from scasml_gp_tpu.gp.semigroup import GPAllenCahnSemigroup
-    from scasml_gp_tpu.gp.solver import GPAllenCahn
-    from scasml_gp_tpu.harness.metrics import mc_reference_solution
+    from scasml_gp.config import GPConfig
+    from scasml_gp.equations import AllenCahn
+    from scasml_gp.gp.semigroup import GPAllenCahnSemigroup
+    from scasml_gp.gp.solver import GPAllenCahn
+    from scasml_gp.harness.metrics import mc_reference_solution
 
     d = args.dim
     eq = AllenCahn(n_input=d + 1)
@@ -105,7 +105,7 @@ def main():
 
     # -- tuned collocation (excludes tuner mis-selection) ----------------
     if not args.skip_tuned:
-        from scasml_gp_tpu.gp.tuning import tune_gp
+        from scasml_gp.gp.tuning import tune_gp
 
         x_dom, x_bdy = eq.generate_data(args.n_dom, args.n_bdy,
                                         key=jax.random.PRNGKey(1234))

@@ -5,7 +5,7 @@ tree sharded over a mesh.  Multi-chip hardware is unavailable, so this leg
 runs the harness twice on a virtual 8-device CPU mesh — once on a (4, 2)
 ('data', 'model') mesh, once unsharded — with identical seeds, and asserts
 the improvement-vs-evaluations curves agree.  The full-size single-chip
-timing/accuracy leg runs on TPU via the runner CLI
+accuracy leg runs on the card via the runner CLI
 (scripts/d100_inference_scaling follows in reports/).
 
     python scripts/d100_mesh_check.py     # forces CPU + 8 virtual devices
@@ -29,13 +29,13 @@ jax.config.update("jax_platforms", "cpu")
 
 import numpy as np  # noqa: E402
 
-from scasml_gp_tpu.config import (  # noqa: E402
+from scasml_gp.config import (  # noqa: E402
     GPConfig,
     MeshConfig,
     PicardConfig,
     RunConfig,
 )
-from scasml_gp_tpu.harness.runner import run  # noqa: E402
+from scasml_gp.harness.runner import run  # noqa: E402
 
 
 def main():

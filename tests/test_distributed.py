@@ -14,17 +14,17 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from scasml_gp_tpu.config import GPConfig
-from scasml_gp_tpu.equations import GradDependentNonlinear
-from scasml_gp_tpu.gp import GPGradDependentNonlinear
-from scasml_gp_tpu.gp.distributed import (
+from scasml_gp.config import GPConfig
+from scasml_gp.equations import GradDependentNonlinear
+from scasml_gp.gp import GPGradDependentNonlinear
+from scasml_gp.gp.distributed import (
     distributed_gpsolver,
     make_distributed_train,
     phi_diag_constants,
 )
-from scasml_gp_tpu.gp.gram import gram_matrix
-from scasml_gp_tpu.gp.kernels import kernel_gammas
-from scasml_gp_tpu.parallel import make_mesh
+from scasml_gp.gp.gram import gram_matrix
+from scasml_gp.gp.kernels import kernel_gammas
+from scasml_gp.parallel import make_mesh
 
 D = 6
 
@@ -161,8 +161,8 @@ def test_distributed_inference_matches_replicated():
     replicated-posterior run within fp-reassociation tolerance — and the
     sharded compile's per-device temp footprint is a fraction of the
     replicated one."""
-    from scasml_gp_tpu.gp.posterior import posterior_eval
-    from scasml_gp_tpu.picard.scasml import ScaSMLFullHistory
+    from scasml_gp.gp.posterior import posterior_eval
+    from scasml_gp.picard.scasml import ScaSMLFullHistory
 
     eq, gp, x_dom, x_bdy = _problem(8192, 512, d=20, seed=3)
     mesh = make_mesh(data=1, model=8)

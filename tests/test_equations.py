@@ -5,7 +5,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from scasml_gp_tpu.equations import GradDependentNonlinear, HJB
+from scasml_gp.equations import GradDependentNonlinear, HJB
 
 
 def make_eq(d=6):

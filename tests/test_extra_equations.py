@@ -7,12 +7,12 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from scasml_gp_tpu.config import GPConfig
-from scasml_gp_tpu.equations import AllenCahn, HJB
-from scasml_gp_tpu.gp.cole_hopf import GPHJBColeHopf
-from scasml_gp_tpu.gp.solver import GPAllenCahn
-from scasml_gp_tpu.harness.metrics import mc_reference_solution
-from scasml_gp_tpu.picard import MLPFullHistory, ScaSMLFullHistory
+from scasml_gp.config import GPConfig
+from scasml_gp.equations import AllenCahn, HJB
+from scasml_gp.gp.cole_hopf import GPHJBColeHopf
+from scasml_gp.gp.solver import GPAllenCahn
+from scasml_gp.harness.metrics import mc_reference_solution
+from scasml_gp.picard import MLPFullHistory, ScaSMLFullHistory
 
 D = 4
 
@@ -172,7 +172,7 @@ def test_hjb_gp_scasml_quadrature():
     extra.py). Full-history is the supported ScaSML configuration for
     gradient-quadratic generators; measured here quadrature lands at ~1.05x
     the GP error (neutral), not catastrophic."""
-    from scasml_gp_tpu.picard import ScaSML
+    from scasml_gp.picard import ScaSML
 
     eq = HJB(n_input=D + 1)
     gp = GPHJBColeHopf(eq, GPConfig(gn_steps=6), terminal_backend="rbf")

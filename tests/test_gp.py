@@ -6,9 +6,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from scasml_gp_tpu.config import GPConfig
-from scasml_gp_tpu.equations import GradDependentNonlinear
-from scasml_gp_tpu.gp import (
+from scasml_gp.config import GPConfig
+from scasml_gp.equations import GradDependentNonlinear
+from scasml_gp.gp import (
     GPGradDependentNonlinear,
     GPState,
     gram_matrix,

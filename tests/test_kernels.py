@@ -12,7 +12,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from scasml_gp_tpu.gp.kernels import (
+from scasml_gp.gp.kernels import (
     DIV,
     DT,
     ID,
@@ -22,6 +22,7 @@ from scasml_gp_tpu.gp.kernels import (
     kernel_gammas,
     op_block,
     pair_stats,
+    sq_dists,
 )
 
 DIM = 4
@@ -164,3 +165,18 @@ def test_separable_reduces_to_isotropic(points):
                 np.asarray(op_block(a, b, st_sep, (G_ISO, G_ISO), DIM)),
                 rtol=1e-6, atol=1e-7,
             )
+
+
+@pytest.mark.parametrize("spread", [1.0, 1e-2])
+def test_sq_dists_matches_float64_differences(spread):
+    """|x - y|^2 through the cancelling |x|^2 + |y|^2 - 2 x.y, also for
+    points close together (spread 1e-2 around a common centre)."""
+    k = jax.random.split(jax.random.PRNGKey(3), 2)
+    x = 1.0 + spread * jax.random.normal(k[0], (32, 20))
+    y = 1.0 + spread * jax.random.normal(k[1], (24, 20))
+    got = np.asarray(sq_dists(x, y), np.float64)
+    xd, yd = np.asarray(x, np.float64), np.asarray(y, np.float64)
+    want = ((xd[:, None, :] - yd[None, :, :]) ** 2).sum(-1)
+    scale = 2.0 * (xd**2).sum(1).max()  # the size of the cancelling terms
+    assert got.min() >= 0.0
+    assert np.max(np.abs(got - want)) <= 1e-6 * scale

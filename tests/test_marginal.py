@@ -14,11 +14,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from scasml_gp_tpu.config import GPConfig
-from scasml_gp_tpu.equations import GradDependentNonlinear
-from scasml_gp_tpu.gp import GPGradDependentNonlinear
-from scasml_gp_tpu.gp.gram import gram_matrix, logdet_quad
-from scasml_gp_tpu.gp.marginal import (
+from scasml_gp.config import GPConfig
+from scasml_gp.equations import GradDependentNonlinear
+from scasml_gp.gp import GPGradDependentNonlinear
+from scasml_gp.gp.gram import gram_matrix, logdet_quad
+from scasml_gp.gp.marginal import (
     _gamma_of,
     _params_to_theta,
     _theta_to_params,

@@ -3,13 +3,13 @@
 import numpy as np
 import pytest
 
-from scasml_gp_tpu.picard.schedule import (
+from scasml_gp.picard.schedule import (
     approx_parameters,
     count_evaluations_full_history,
     count_evaluations_quadrature,
     leggauss,
 )
-from scasml_gp_tpu.utils.native import (
+from scasml_gp.utils.native import (
     get_lib,
     native_count_full_history,
     native_count_quadrature,
@@ -56,3 +56,43 @@ def test_native_full_history_counter(n, M, variant):
     got = native_count_full_history(n, M, scasml_variant=variant)
     want = count_evaluations_full_history(n, M, scasml_variant=variant)
     assert got == want
+
+
+@pytest.fixture
+def private_build(monkeypatch, tmp_path):
+    """The native module pointed at a copy of the source and an empty build
+    directory, with nothing loaded yet."""
+    import shutil
+
+    import scasml_gp.utils.native as native
+
+    src = tmp_path / "schedule.cc"
+    shutil.copy(native._SRC, src)
+    lib = tmp_path / "build" / "libscasml_schedule.so"
+    monkeypatch.setattr(native, "_SRC", str(src))
+    monkeypatch.setattr(native, "_BUILD_DIR", str(lib.parent))
+    monkeypatch.setattr(native, "_LIB_PATH", str(lib))
+    monkeypatch.setattr(native, "_lib", None)
+    monkeypatch.setattr(native, "_lib_failed", False)
+    return native, src, lib
+
+
+def test_native_library_built_when_missing(private_build):
+    native, src, lib = private_build
+    assert not lib.exists()
+    assert native.get_lib() is not None
+    assert lib.exists()
+    xn, _ = native.native_leggauss(5, 0.0, 0.5)
+    np.testing.assert_allclose(xn, leggauss(5, 0.0, 0.5)[0], rtol=1e-12)
+
+
+def test_native_library_rebuilt_when_older_than_source(private_build):
+    import os
+
+    native, src, lib = private_build
+    lib.parent.mkdir()
+    lib.write_bytes(b"not a shared library")   # unloadable if kept
+    old = src.stat().st_mtime - 100
+    os.utime(lib, (old, old))
+    assert native.get_lib() is not None
+    assert lib.stat().st_mtime >= src.stat().st_mtime

@@ -8,9 +8,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from scasml_gp_tpu.config import GPConfig
-from scasml_gp_tpu.equations.grad_dependent import GradDependentNonlinear
-from scasml_gp_tpu.gp.parity import (
+from scasml_gp.config import GPConfig
+from scasml_gp.equations.grad_dependent import GradDependentNonlinear
+from scasml_gp.gp.parity import (
     DIV,
     DT,
     ID,
@@ -21,7 +21,7 @@ from scasml_gp_tpu.gp.parity import (
     parity_gram_matrix,
     subset_indices,
 )
-from scasml_gp_tpu.gp.solver import GPGradDependentNonlinear
+from scasml_gp.gp.solver import GPGradDependentNonlinear
 
 D = 7
 SUBSET = subset_indices(D, 3)

@@ -7,11 +7,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from scasml_gp_tpu.config import GPConfig
-from scasml_gp_tpu.equations import GradDependentNonlinear
-from scasml_gp_tpu.equations.base import Equation
-from scasml_gp_tpu.gp import GPGradDependentNonlinear
-from scasml_gp_tpu.picard import (
+from scasml_gp.config import GPConfig
+from scasml_gp.equations import GradDependentNonlinear
+from scasml_gp.equations.base import Equation
+from scasml_gp.gp import GPGradDependentNonlinear
+from scasml_gp.picard import (
     MLP,
     MLPFullHistory,
     ScaSML,
@@ -216,11 +216,11 @@ def test_skip_zero_fbreve_is_bitwise_exact(trained_gp):
     posterior sweeps; since those contributions are bitwise zero (val1 ==
     val2 on identical inputs, and x + 0 == x), the estimator must be
     BITWISE identical with the flag off."""
-    from scasml_gp_tpu.picard.core import (
+    from scasml_gp.picard.core import (
         build_full_history_uz,
         build_quadrature_uz,
     )
-    from scasml_gp_tpu.picard.schedule import approx_parameters as ap
+    from scasml_gp.picard.schedule import approx_parameters as ap
 
     eq, gp = trained_gp
     sca = ScaSMLFullHistory(eq, gp)
@@ -343,7 +343,7 @@ def test_variance_guard_abstains_on_pure_noise(trained_gp):
 
 
 def test_hjb_enables_variance_guard_by_default():
-    from scasml_gp_tpu.equations.extra import HJB
+    from scasml_gp.equations.extra import HJB
 
     eq = HJB(n_input=5)
     assert getattr(eq, "variance_guard") is True

@@ -7,8 +7,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from scasml_gp_tpu.gp.kernels import kernel_gammas
-from scasml_gp_tpu.gp.posterior import posterior_eval
+from scasml_gp.gp.kernels import kernel_gammas
+from scasml_gp.gp.posterior import posterior_eval
 
 D = 5
 N_DOM, N_BDY = 40, 15

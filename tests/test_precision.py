@@ -12,18 +12,18 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from scasml_gp_tpu.config import (
+from scasml_gp.config import (
     GPConfig,
     MeshConfig,
     PicardConfig,
     PrecisionPolicy,
     RunConfig,
 )
-from scasml_gp_tpu.equations import GradDependentNonlinear
-from scasml_gp_tpu.gp import GPGradDependentNonlinear
-from scasml_gp_tpu.gp.gram import gram_matrix
-from scasml_gp_tpu.harness.runner import build_solvers, run
-from scasml_gp_tpu.picard.mlp import MLPFullHistory
+from scasml_gp.equations import GradDependentNonlinear
+from scasml_gp.gp import GPGradDependentNonlinear
+from scasml_gp.gp.gram import gram_matrix
+from scasml_gp.harness.runner import build_solvers, run
+from scasml_gp.picard.mlp import MLPFullHistory
 
 D = 4
 BF16 = PrecisionPolicy(gram="bfloat16", rollout="bfloat16")

@@ -16,10 +16,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from scasml_gp_tpu.equations import AllenCahn
-from scasml_gp_tpu.gp.semigroup import GPAllenCahnSemigroup
-from scasml_gp_tpu.harness.metrics import mc_reference_solution
-from scasml_gp_tpu.picard.scasml import ScaSMLFullHistory
+from scasml_gp.equations import AllenCahn
+from scasml_gp.gp.semigroup import GPAllenCahnSemigroup
+from scasml_gp.harness.metrics import mc_reference_solution
+from scasml_gp.picard.scasml import ScaSMLFullHistory
 
 D = 3
 
@@ -110,7 +110,7 @@ def test_bernstein_panel_nodes_identity():
     """The composite log-panel rule must reproduce (1+bq)^{-k} to near
     machine precision over the reachable q range, for both k = 1
     (Allen-Cahn / HJB at sigma = sqrt(2)) and a fractional k."""
-    from scasml_gp_tpu.gp.semigroup import bernstein_panel_nodes
+    from scasml_gp.gp.semigroup import bernstein_panel_nodes
 
     q = np.concatenate([np.linspace(0.0, 30.0, 40), [50.0, 80.0]])
     # k >= 1 (every implemented equation: k = 2/sigma^2 = 1 at
@@ -134,8 +134,8 @@ def test_hjb_mixture_backend_near_exact():
     the HJB surrogate exact up to quadrature error — measured within the
     MC oracle's own noise at d = 20/100/250 (0.00096/0.00023/0.00011 vs
     oracle self-diffs 0.00138/0.00030/0.00015)."""
-    from scasml_gp_tpu.equations import HJB
-    from scasml_gp_tpu.gp.cole_hopf import GPHJBColeHopf
+    from scasml_gp.equations import HJB
+    from scasml_gp.gp.cole_hopf import GPHJBColeHopf
 
     eq = HJB(n_input=D + 1)
     gp = GPHJBColeHopf(eq)  # auto -> mixture
@@ -153,8 +153,8 @@ def test_hjb_mixture_backend_near_exact():
 
 
 def test_hjb_mixture_derivatives_match_autodiff():
-    from scasml_gp_tpu.equations import HJB
-    from scasml_gp_tpu.gp.cole_hopf import GPHJBColeHopf
+    from scasml_gp.equations import HJB
+    from scasml_gp.gp.cole_hopf import GPHJBColeHopf
 
     eq = HJB(n_input=D + 1)
     gp = GPHJBColeHopf(eq)

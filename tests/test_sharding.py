@@ -5,17 +5,17 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from scasml_gp_tpu.config import GPConfig
-from scasml_gp_tpu.equations import GradDependentNonlinear
-from scasml_gp_tpu.gp import GPGradDependentNonlinear
-from scasml_gp_tpu.parallel import (
+from scasml_gp.config import GPConfig
+from scasml_gp.equations import GradDependentNonlinear
+from scasml_gp.gp import GPGradDependentNonlinear
+from scasml_gp.parallel import (
     make_mesh,
     make_sharded_picard_solve,
     make_sharded_train_and_solve,
 )
-from scasml_gp_tpu.picard.core import build_full_history_uz
-from scasml_gp_tpu.picard.mlp import MLPFullHistory
-from scasml_gp_tpu.picard.scasml import ScaSMLFullHistory
+from scasml_gp.picard.core import build_full_history_uz
+from scasml_gp.picard.mlp import MLPFullHistory
+from scasml_gp.picard.scasml import ScaSMLFullHistory
 
 D = 6
 

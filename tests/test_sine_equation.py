@@ -12,10 +12,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from scasml_gp_tpu.config import GPConfig
-from scasml_gp_tpu.equations import SineNonlinear
-from scasml_gp_tpu.gp.solver import GPSineNonlinear, SineForm
-from scasml_gp_tpu.picard import MLPFullHistory, ScaSMLFullHistory
+from scasml_gp.config import GPConfig
+from scasml_gp.equations import SineNonlinear
+from scasml_gp.gp.solver import GPSineNonlinear, SineForm
+from scasml_gp.picard import MLPFullHistory, ScaSMLFullHistory
 
 D = 4
 

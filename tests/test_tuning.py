@@ -3,10 +3,10 @@
 import jax
 import numpy as np
 
-from scasml_gp_tpu.config import GPConfig
-from scasml_gp_tpu.equations import GradDependentNonlinear
-from scasml_gp_tpu.gp import GPGradDependentNonlinear
-from scasml_gp_tpu.gp.tuning import tune_gp, validation_score
+from scasml_gp.config import GPConfig
+from scasml_gp.equations import GradDependentNonlinear
+from scasml_gp.gp import GPGradDependentNonlinear
+from scasml_gp.gp.tuning import tune_gp, validation_score
 
 D = 6
 
@@ -53,10 +53,10 @@ def test_tune_gp_distributed_backend():
 
     import jax
 
-    from scasml_gp_tpu.config import GPConfig
-    from scasml_gp_tpu.equations import GradDependentNonlinear
-    from scasml_gp_tpu.gp.solver import GPGradDependentNonlinear
-    from scasml_gp_tpu.gp.tuning import tune_gp
+    from scasml_gp.config import GPConfig
+    from scasml_gp.equations import GradDependentNonlinear
+    from scasml_gp.gp.solver import GPGradDependentNonlinear
+    from scasml_gp.gp.tuning import tune_gp
 
     d = 6
     eq = GradDependentNonlinear(n_input=d + 1)

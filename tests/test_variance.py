@@ -11,18 +11,18 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from scasml_gp_tpu.config import GPConfig
-from scasml_gp_tpu.equations import GradDependentNonlinear
-from scasml_gp_tpu.gp.gram import gram_matrix
-from scasml_gp_tpu.gp.kernels import PHI_OPS, ID, kernel_gammas
-from scasml_gp_tpu.gp.solver import GPGradDependentNonlinear
-from scasml_gp_tpu.gp.variance import (
+from scasml_gp.config import GPConfig
+from scasml_gp.equations import GradDependentNonlinear
+from scasml_gp.gp.gram import gram_matrix
+from scasml_gp.gp.kernels import PHI_OPS, ID, kernel_gammas
+from scasml_gp.gp.solver import GPGradDependentNonlinear
+from scasml_gp.gp.variance import (
     cross_phi,
     factor_for_variance,
     posterior_variance,
 )
 
-from tests.test_kernels import apply_op, make_kappa
+from test_kernels import apply_op, make_kappa
 
 DIM = 3
 NUGGET = 1e-2
@@ -127,9 +127,9 @@ def test_guarded_quadrature_scasml_on_hjb():
     correction is pure MC noise (plus gradient-quadratic bias no variance
     column can see) and the guard must shrink it away; a coarse surrogate
     keeps a genuinely informative correction."""
-    from scasml_gp_tpu.equations import EQUATIONS
-    from scasml_gp_tpu.gp.cole_hopf import GPHJBColeHopf
-    from scasml_gp_tpu.picard import ScaSML
+    from scasml_gp.equations import EQUATIONS
+    from scasml_gp.gp.cole_hopf import GPHJBColeHopf
+    from scasml_gp.picard import ScaSML
 
     d = 4
     eq = EQUATIONS["HJB"](n_input=d + 1)
@@ -160,7 +160,7 @@ def test_auto_schedule_ladder_selection():
     (picard/scasml.py _auto_schedule_solve; VERDICT round-4 #2/#3):
     short-circuits on the first signal-dominated candidate, and abstains
     to u_hat when every candidate stays below the accept threshold."""
-    from scasml_gp_tpu.picard.scasml import _ScaSMLBase
+    from scasml_gp.picard.scasml import _ScaSMLBase
 
     class _Fake(_ScaSMLBase):
         def __init__(self, lambdas):
@@ -205,7 +205,7 @@ def test_measured_probe_ratio_full_history():
     ratio only when the columns are degenerate."""
     import jax.numpy as jnp
 
-    from scasml_gp_tpu.picard import ScaSMLFullHistory
+    from scasml_gp.picard import ScaSMLFullHistory
 
     d = 4
     eq = GradDependentNonlinear(n_input=d + 1)
@@ -238,7 +238,7 @@ def test_adaptive_clip_bounds_correction():
     """Opt-in adaptive clip (VERDICT round-3 Next #4): the final correction
     is clamped per point to +- k * predict_std instead of the reference's
     fixed equation.uncertainty constant."""
-    from scasml_gp_tpu.picard import ScaSMLFullHistory
+    from scasml_gp.picard import ScaSMLFullHistory
 
     d = 4
     eq = GradDependentNonlinear(n_input=d + 1)
